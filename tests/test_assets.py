@@ -5,32 +5,32 @@ import json
 import numpy as np
 import pytest
 
-from direct12pbrrenderer_tpu.resource import reflection_def  # noqa: F401
-from direct12pbrrenderer_tpu.resource.bc import (
+from direct12pbrrenderer.resource import reflection_def  # noqa: F401
+from direct12pbrrenderer.resource.bc import (
     bc1_decode_mip,
     bc1_encode_mip,
     bc6h_decode_mip,
     bc6h_encode_mip,
 )
-from direct12pbrrenderer_tpu.resource.formats import ETextureFormat
-from direct12pbrrenderer_tpu.resource.resources import (
+from direct12pbrrenderer.resource.formats import ETextureFormat
+from direct12pbrrenderer.resource.resources import (
     MaterialResource,
     ModelResource,
     TextureResource,
 )
-from direct12pbrrenderer_tpu.resource.serialization import (
+from direct12pbrrenderer.resource.serialization import (
     Reader,
     binary_deserialize,
     binary_serialize,
     json_deserialize,
     json_serialize,
 )
-from direct12pbrrenderer_tpu.resource.storage import (
+from direct12pbrrenderer.resource.storage import (
     EVertexFormat,
     MeshData,
     TextureData,
 )
-from direct12pbrrenderer_tpu.scene.scene import Scene
+from direct12pbrrenderer.scene.scene import Scene
 
 
 def test_barrel_mesh_binary(asset_loader):
@@ -100,7 +100,7 @@ def test_bc6h_high_quality_two_region_encode():
     """quality="high" runs the 32-partition mode-0 search: on edge content
     (two distinct HDR populations per block) it must beat mode 11, decode
     bit-consistently through BOTH decoders, and actually emit mode-0 blocks."""
-    from direct12pbrrenderer_tpu.resource import bc
+    from direct12pbrrenderer.resource import bc
 
     rng = np.random.default_rng(7)
     # hard two-population content: bright sky vs dark ground with a ragged
@@ -136,7 +136,7 @@ def test_bc6h_high_quality_two_region_encode():
     assert ((raw[:, 0] & 0x3) == 0).any()
 
     # python decoder and the C++ codec agree on the mode-0 blocks
-    from direct12pbrrenderer_tpu.resource import native_codec
+    from direct12pbrrenderer.resource import native_codec
 
     if native_codec.available():
         dec_native = native_codec.bc6h_decode_mip(blob_high, 16, 16)
@@ -226,7 +226,7 @@ def test_bc6h_all_modes_against_reference_vectors():
     Vectors: tests/data/bc6h_vectors.npz (random blocks, every mode)."""
     import pathlib
 
-    from direct12pbrrenderer_tpu.resource import bc
+    from direct12pbrrenderer.resource import bc
 
     data = np.load(pathlib.Path(__file__).parent / "data" / "bc6h_vectors.npz")
     blocks, want = data["blocks"], data["texels"]
@@ -235,7 +235,7 @@ def test_bc6h_all_modes_against_reference_vectors():
 
     # the ctypes native codec must agree bit-for-bit (blocks laid out as a
     # (4, 4N) mip)
-    from direct12pbrrenderer_tpu.resource import native_codec
+    from direct12pbrrenderer.resource import native_codec
 
     if native_codec.available():
         n = len(blocks)

@@ -26,7 +26,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from direct12pbrrenderer_tpu.ops import common, ibl
+from direct12pbrrenderer.ops import common, ibl
 
 PI = np.pi
 

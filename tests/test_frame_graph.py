@@ -1,6 +1,6 @@
 import pytest
 
-from direct12pbrrenderer_tpu.graph import frame_graph as fg
+from direct12pbrrenderer.graph import frame_graph as fg
 
 
 def P(name, reads, writes, fn=None):

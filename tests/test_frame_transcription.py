@@ -30,7 +30,7 @@ import math
 import numpy as np
 import jax.numpy as jnp
 
-from direct12pbrrenderer_tpu.config import (
+from direct12pbrrenderer.config import (
     BLOOM_KNEE,
     BLOOM_STEPS,
     BLOOM_THRESHOLD,
@@ -48,16 +48,16 @@ from direct12pbrrenderer_tpu.config import (
     PREFILTER_ENVMAP_MIP_LEVELS,
     RenderConfig,
 )
-from direct12pbrrenderer_tpu.resource import reflection_def  # noqa: F401
-from direct12pbrrenderer_tpu.resource.default_meshes import sphere_mesh
-from direct12pbrrenderer_tpu.resource.resources import (
+from direct12pbrrenderer.resource import reflection_def  # noqa: F401
+from direct12pbrrenderer.resource.default_meshes import sphere_mesh
+from direct12pbrrenderer.resource.resources import (
     CubeMapResource,
     MaterialResource,
     MeshResource,
     ModelResource,
 )
-from direct12pbrrenderer_tpu.scene.camera import Camera
-from direct12pbrrenderer_tpu.scene.scene import Scene, SceneLight, SceneModel
+from direct12pbrrenderer.scene.camera import Camera
+from direct12pbrrenderer.scene.scene import Scene, SceneLight, SceneModel
 
 from test_env_isolation import _sky_cube
 from test_shading_transcription import (  # scalar HLSL pieces (pinned there)
@@ -382,8 +382,8 @@ def np_tonemap(hdr, avg):
 
 # ------------------------------------------------------------------- test
 def test_full_frame_matches_scalar_transcription():
-    from direct12pbrrenderer_tpu.pipeline import stages
-    from direct12pbrrenderer_tpu.pipeline.deferred import DeferredRenderPipeline
+    from direct12pbrrenderer.pipeline import stages
+    from direct12pbrrenderer.pipeline.deferred import DeferredRenderPipeline
 
     scene = _scene()
     cfg = RenderConfig(width=W, height=H, max_triangles=2048,

@@ -16,15 +16,15 @@ Quirks intentionally covered:
 * `Sample()` maps to the rebuild's LinearWrap trilinear unit with the LOD
   from hardware-style 2x2-quad derivatives of uv (same definition as ddx/ddy
   coarse); the sampler unit itself is pinned separately
-  (tests/test_texcache.py) — this test pins every shader-side term.
+  (tests/test_sampler.py) — this test pins every shader-side term.
 """
 
 import numpy as np
 import jax.numpy as jnp
 
-from direct12pbrrenderer_tpu.ops import common, gbuffer
+from direct12pbrrenderer.ops import common, gbuffer
 
-from test_texcache import _build_atlas, _StubTexture  # noqa: F401
+from test_sampler import _build_atlas, _StubTexture  # noqa: F401
 
 
 # ------------------------------------------------------- HLSL transcription
@@ -115,7 +115,7 @@ def _run_case(use_maps: bool):
     specs = [(8, 8, True), (8, 8, False), (8, 8, False), (8, 8, False),
              (8, 8, False)]
     stubs = [_StubTexture(rng, w, h, srgb) for (w, h, srgb) in specs]
-    from direct12pbrrenderer_tpu.pipeline import scene_pack
+    from direct12pbrrenderer.pipeline import scene_pack
 
     builder = scene_pack._AtlasBuilder()
     for s in stubs:
@@ -155,7 +155,7 @@ def _run_case(use_maps: bool):
     depth = jnp.full((H, W), 0.5, jnp.float32)
     gb = gbuffer._shade_from_interp(
         jnp.asarray(interp), jnp.asarray(matrow), mask, depth, atlas,
-        texture_filter="trilinear", use_tex_kernel=False,
+        texture_filter="trilinear",
     )
 
     # --------------- transcription at one pixel (3, 5) --------------------

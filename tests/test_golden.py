@@ -10,8 +10,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from direct12pbrrenderer_tpu.config import RenderConfig
-from direct12pbrrenderer_tpu.utils.fidelity import compare_to_golden, rmse
+from direct12pbrrenderer.config import RenderConfig
+from direct12pbrrenderer.utils.fidelity import compare_to_golden, rmse
 from test_pipeline import build_scene
 
 GOLDEN_DIR = Path(__file__).parent / "goldens"
@@ -31,8 +31,8 @@ def test_golden_sphere_frame():
 
     Tolerance 2e-3: fp reassociation across XLA versions/backends lands well
     under it; real shading changes land far over it."""
-    from direct12pbrrenderer_tpu.pipeline.deferred import DeferredRenderPipeline
-    from direct12pbrrenderer_tpu.scene.camera import Camera
+    from direct12pbrrenderer.pipeline.deferred import DeferredRenderPipeline
+    from direct12pbrrenderer.scene.camera import Camera
 
     cfg = RenderConfig(
         width=256, height=192, max_triangles=2048, max_vertices=2048,
@@ -56,8 +56,8 @@ def test_golden_sphere_frame():
 def test_golden_emissive_frame():
     """Emissive-sphere frame (exercises emission + bloom + the RGBA8 emission
     saturation quirk)."""
-    from direct12pbrrenderer_tpu.pipeline.deferred import DeferredRenderPipeline
-    from direct12pbrrenderer_tpu.scene.camera import Camera
+    from direct12pbrrenderer.pipeline.deferred import DeferredRenderPipeline
+    from direct12pbrrenderer.scene.camera import Camera
 
     cfg = RenderConfig(
         width=256, height=192, max_triangles=2048, max_vertices=2048,

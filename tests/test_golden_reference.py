@@ -9,17 +9,17 @@ from pathlib import Path
 
 import numpy as np
 
-from direct12pbrrenderer_tpu.config import RenderConfig
-from direct12pbrrenderer_tpu.utils.fidelity import compare_to_golden
+from direct12pbrrenderer.config import RenderConfig
+from direct12pbrrenderer.utils.fidelity import compare_to_golden
 
 GOLDEN_DIR = Path(__file__).parent / "goldens"
 UPDATE = bool(os.environ.get("UPDATE_GOLDENS"))
 
 
 def test_reference_scene_golden(asset_loader):
-    from direct12pbrrenderer_tpu.pipeline.deferred import DeferredRenderPipeline
-    from direct12pbrrenderer_tpu.scene.camera import Camera
-    from direct12pbrrenderer_tpu.scene.scene import Scene
+    from direct12pbrrenderer.pipeline.deferred import DeferredRenderPipeline
+    from direct12pbrrenderer.scene.camera import Camera
+    from direct12pbrrenderer.scene.scene import Scene
 
     scene = asset_loader.load_resource(Scene, "Asset/Scene/main.json")
     cfg = RenderConfig(
@@ -57,11 +57,11 @@ def test_camera_on_floor_near_plane_coverage(asset_loader):
     """
     import jax.numpy as jnp
 
-    from direct12pbrrenderer_tpu.ops import raster
-    from direct12pbrrenderer_tpu.pipeline import stages
-    from direct12pbrrenderer_tpu.pipeline.deferred import DeferredRenderPipeline
-    from direct12pbrrenderer_tpu.scene.camera import Camera
-    from direct12pbrrenderer_tpu.scene.scene import Scene
+    from direct12pbrrenderer.ops import raster
+    from direct12pbrrenderer.pipeline import stages
+    from direct12pbrrenderer.pipeline.deferred import DeferredRenderPipeline
+    from direct12pbrrenderer.scene.camera import Camera
+    from direct12pbrrenderer.scene.scene import Scene
 
     scene = asset_loader.load_resource(Scene, "Asset/Scene/main.json")
     cfg = RenderConfig(
@@ -107,9 +107,9 @@ def test_reference_scene_hero_golden(asset_loader):
     """The hero view at 768x512 (the 1440x960 composition at CI-tractable
     scale): pins the full frame at the driver's 1e-3 RMSE bar, an order of
     magnitude more pixels than the 256x192 golden."""
-    from direct12pbrrenderer_tpu.pipeline.deferred import DeferredRenderPipeline
-    from direct12pbrrenderer_tpu.scene.camera import Camera
-    from direct12pbrrenderer_tpu.scene.scene import Scene
+    from direct12pbrrenderer.pipeline.deferred import DeferredRenderPipeline
+    from direct12pbrrenderer.scene.camera import Camera
+    from direct12pbrrenderer.scene.scene import Scene
 
     scene = asset_loader.load_resource(Scene, "Asset/Scene/main.json")
     cfg = RenderConfig(

@@ -4,11 +4,12 @@ entry()'s example args must trace against the pipeline's actual _frame
 signature (it silently broke when the packed per-frame upload landed — this
 pins it; the driver compile-checks the same call on hardware)."""
 
+import pathlib
 import sys
 
 import jax
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 
 def test_entry_traces():

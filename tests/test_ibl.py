@@ -5,7 +5,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from direct12pbrrenderer_tpu.ops import common, ibl
+from direct12pbrrenderer.ops import common, ibl
 
 
 def test_brdf_lut_known_properties():
@@ -106,7 +106,7 @@ def test_cubemap_sampling_roundtrip():
 
 
 def test_octahedron_jax_matches_numpy():
-    from direct12pbrrenderer_tpu.utils import mathlib as ml
+    from direct12pbrrenderer.utils import mathlib as ml
 
     rng = np.random.default_rng(3)
     d = rng.normal(size=(256, 3)).astype(np.float32)

@@ -4,11 +4,11 @@ plus the console commands (the reference's Command.txt workflow)."""
 import numpy as np
 import pytest
 
-from direct12pbrrenderer_tpu.app import console
-from direct12pbrrenderer_tpu.resource import reflection_def  # noqa: F401
-from direct12pbrrenderer_tpu.resource.loader import ResourceLoader
-from direct12pbrrenderer_tpu.resource.resources import CubeMapResource, ModelResource
-from direct12pbrrenderer_tpu.resource.storage import CubeMapTextureData
+from direct12pbrrenderer.app import console
+from direct12pbrrenderer.resource import reflection_def  # noqa: F401
+from direct12pbrrenderer.resource.loader import ResourceLoader
+from direct12pbrrenderer.resource.resources import CubeMapResource, ModelResource
+from direct12pbrrenderer.resource.storage import CubeMapTextureData
 
 
 @pytest.fixture
@@ -68,10 +68,10 @@ def test_imported_model_renders(workspace):
     _write_quad_obj(root)
     loader.import_model(root / "quad.obj", "Asset/Quad/Quad")
 
-    from direct12pbrrenderer_tpu.config import RenderConfig
-    from direct12pbrrenderer_tpu.pipeline.deferred import DeferredRenderPipeline
-    from direct12pbrrenderer_tpu.scene.camera import Camera
-    from direct12pbrrenderer_tpu.scene.scene import Scene, SceneLight, SceneModel
+    from direct12pbrrenderer.config import RenderConfig
+    from direct12pbrrenderer.pipeline.deferred import DeferredRenderPipeline
+    from direct12pbrrenderer.scene.camera import Camera
+    from direct12pbrrenderer.scene.scene import Scene, SceneLight, SceneModel
 
     scene = Scene("mem/scene")
     sm = SceneModel("quad")
@@ -110,7 +110,7 @@ def test_console_sphere_and_sky_and_irradiance(workspace, tmp_path):
     out = tmp_path / "irr"
     console.main(["--asset-root", str(root), "GenerateIrradianceMap",
                   "-i", "Asset/Sky/Test", "-o", str(out), "-s", "16"])
-    from direct12pbrrenderer_tpu.resource.hdr import load_hdr
+    from direct12pbrrenderer.resource.hdr import load_hdr
 
     face = load_hdr(out / "py.hdr")
     assert face.shape == (16, 16, 3)
@@ -121,7 +121,7 @@ def test_console_sphere_and_sky_and_irradiance(workspace, tmp_path):
 
 def test_import_cubemap_from_hdr_faces(workspace):
     root, loader = workspace
-    from direct12pbrrenderer_tpu.resource.hdr import save_hdr
+    from direct12pbrrenderer.resource.hdr import save_hdr
 
     d = root / "cube"
     d.mkdir()

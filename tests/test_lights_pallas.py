@@ -3,9 +3,10 @@
 The reference sizes clustered shading for <=1024 lights / <=32 per cluster
 (DeferredPipeline.h:326-330, clustered_culling.hlsl,
 deferred_shading.hlsl:159-186). ops.shading's fori path pins those semantics;
-these tests pin the Pallas tile kernel against it — same cluster membership,
-same light index order, same cap-32 counter — at light counts far above the
-reference scene's 8.
+these tests pin the Triton tile kernel against it (Pallas interpret mode on
+the CPU, compiled on the card under the `gpu` marker) — same cluster
+membership, same light index order, same cap-32 counter — at light counts
+far above the reference scene's 8.
 """
 
 import math
@@ -15,10 +16,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from direct12pbrrenderer_tpu.ops import common, shading
+from direct12pbrrenderer.ops import common, shading
 
 H, W = 48, 256
-TILE = (24, 128)
+TILE = (16, 64)
 FOV, NEAR, FAR = math.pi / 3.0, 0.1, 100.0
 RATIO = W / H
 
@@ -52,7 +53,7 @@ def _light_rows(rng, n, max_active, all_covering=False):
     )
 
 
-def _shade(rows, gb, light_tile, light_cap=256):
+def _shade(rows, gb, light_tile, light_cap=256, interpret=True):
     alb_em, oct_, rma, depth, mask = gb
     sh = jnp.zeros((7, 4), jnp.float32)
     lut = (common.make_quad_tex2d(jnp.zeros((8, 8, 2), jnp.float32)), 8)
@@ -60,9 +61,7 @@ def _shade(rows, gb, light_tile, light_cap=256):
     return shading.deferred_shade(
         alb_em, oct_, rma, depth, mask, sh, lut, cube, cube,
         rows, jnp.eye(4), jnp.zeros(3), FOV, RATIO, NEAR, FAR, W, H,
-        light_tile=light_tile, light_cap=light_cap,
-        # env_interpret doubles as the light kernel's interpret flag
-        env_interpret=(jax.default_backend() == "cpu"),
+        light_tile=light_tile, light_cap=light_cap, interpret=interpret,
     )
 
 
@@ -86,13 +85,13 @@ def test_tile_kernel_matches_fori(scenario):
 
 
 def test_tile_light_lists_counts():
-    from direct12pbrrenderer_tpu.ops import lights_pallas
+    from direct12pbrrenderer.ops import clustered
 
     rng = np.random.default_rng(3)
     rows = _light_rows(rng, 40, 128)
     tiles_y, tiles_x = H // TILE[0], W // TILE[1]
     ids, counts = jax.jit(
-        lights_pallas.tile_light_lists,
+        clustered.tile_light_lists,
         static_argnums=(1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11),
     )(rows, tiles_y, tiles_x, TILE[0], TILE[1], W, H, FOV, RATIO, NEAR, FAR,
       128)
@@ -110,10 +109,10 @@ def test_tile_light_lists_counts():
 def test_pipeline_light_tile_path():
     """Full pipeline with 72 scattered lights: the tile-kernel frame must
     match the fori-path frame (uint8 within 1 LSB) and report no truncation."""
-    from direct12pbrrenderer_tpu.config import RenderConfig
-    from direct12pbrrenderer_tpu.pipeline.deferred import DeferredRenderPipeline
-    from direct12pbrrenderer_tpu.scene.camera import Camera
-    from direct12pbrrenderer_tpu.tools.stress_scene import build_stress_scene
+    from direct12pbrrenderer.config import RenderConfig
+    from direct12pbrrenderer.pipeline.deferred import DeferredRenderPipeline
+    from direct12pbrrenderer.scene.camera import Camera
+    from direct12pbrrenderer.tools.stress_scene import build_stress_scene
 
     scene = build_stress_scene(cells_x=16, cells_y=8, n_lights=72)
     cfg = RenderConfig(width=256, height=96, max_instances=2, max_lights=128,
@@ -122,18 +121,82 @@ def test_pipeline_light_tile_path():
     cam.move([0, 4, 10])
     cam.rotate(0, math.pi, 0.3)
 
-    def run(light_tile):
+    def run(**kw):
         pipe = DeferredRenderPipeline(
-            scene, cfg, tile_h=24, tile_w=128, bin_cap=256,
-            max_active_lights=128, light_tile=light_tile,
-            pallas_interpret=True, atlas_max_dim=64,
+            scene, cfg, tile_h=TILE[0], tile_w=TILE[1], bin_cap=256,
+            max_active_lights=128, atlas_max_dim=64, **kw,
         )
         img = np.asarray(pipe.render(cam))
-        return img, pipe.last_stats
+        return img, pipe.last_stats, pipe.light_tile
 
-    ref, _ = run(None)
-    got, stats = run((24, 128))
+    ref, _, no_tile = run(route="xla")
+    got, stats, tile = run(pallas_interpret=True)
+    assert no_tile is None and tile == TILE
     assert stats.lights_truncated == 0
     assert stats.light_tile_overflow == 0
     assert stats.visible_lights > 32
     assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+
+
+def test_cluster_hit_table_matches_host_bounds():
+    """The device hit table (fp32 closed-form AABBs) agrees with the host's
+    float64 cluster_bounds sphere test away from exact-touch ties."""
+    from direct12pbrrenderer.ops import clustered
+
+    rng = np.random.default_rng(9)
+    rows = _light_rows(rng, 64, 64)
+    hits = np.asarray(clustered.cluster_light_hits(rows, FOV, RATIO, NEAR,
+                                                   FAR))
+    bounds = clustered.cluster_bounds(FOV, RATIO, NEAR, FAR).astype(np.float64)
+    pv = np.asarray(rows)[:, 10:13].astype(np.float64)
+    r = np.asarray(rows)[:, 13].astype(np.float64)
+    d = pv[None] - np.clip(pv[None], bounds[:, None, 0], bounds[:, None, 1])
+    d2 = (d * d).sum(-1)
+    ref = d2 < r[None] ** 2
+    clear = np.abs(d2 - r[None] ** 2) > 1e-3 * np.maximum(r[None] ** 2, 1.0)
+    assert hits.shape == (clustered.NUM_CLUSTERS, 64)
+    np.testing.assert_array_equal(hits[clear], ref[clear])
+    assert hits.any() and not hits.all()
+
+
+def test_overflowing_tile_lists_reported_and_cluster_cap_binds_first():
+    """More lights than light_cap cover every tile: the overflow is reported,
+    and since every cluster's 32-light cap fills from the first lights in
+    index order, the kernel's truncated walk still equals the fori path."""
+    from direct12pbrrenderer.config import RenderConfig
+    from direct12pbrrenderer.pipeline import stages
+
+    rng = np.random.default_rng(12)
+    gb = _gbuffer(rng)
+    rows = _light_rows(rng, 200, 256, all_covering=True)
+    cfg = RenderConfig(width=W, height=H, fov=FOV, near=NEAR, far=FAR)
+    over = int(stages.light_tile_overflow(rows, cfg, W, H, TILE, 128, W, H))
+    assert over == 200 - 128
+    assert int(stages.light_tile_overflow(rows, cfg, W, H, None, 128, W,
+                                          H)) == 0
+    ref = np.asarray(_shade(rows, gb, None))
+    got = np.asarray(_shade(rows, gb, TILE, light_cap=128))
+    np.testing.assert_allclose(got, ref, rtol=5e-4, atol=5e-4)
+
+
+def test_kernel_rejects_non_power_of_two_tile():
+    rng = np.random.default_rng(4)
+    with pytest.raises(ValueError, match="power of two"):
+        _shade(_light_rows(rng, 8, 128), _gbuffer(rng), (24, 64))
+
+
+@pytest.mark.gpu
+def test_compiled_kernel_matches_fori(gpu_device):
+    """Compiled kernel vs the XLA fori path over the cap-32 case. Roughness
+    stays >= 0.3: below it the GGX denominator n.h^2 (a^2 - 1) + 1 cancels
+    to ~a^2 at highlights, and XLA and Triton contract its multiply-add into
+    FMAs differently, which no fp32 tolerance of this size absorbs."""
+    rng = np.random.default_rng(8)
+    alb_em, oct_, rma, depth, mask = _gbuffer(rng)
+    rma = rma.at[..., 0].set(jnp.asarray(rng.uniform(0.3, 1.0, (H, W)),
+                                         jnp.float32))
+    gb = (alb_em, oct_, rma, depth, mask)
+    rows = _light_rows(rng, 64, 128, all_covering=True)
+    ref = np.asarray(_shade(rows, gb, None, interpret=False))
+    got = np.asarray(_shade(rows, gb, TILE, interpret=False))
+    np.testing.assert_allclose(got, ref, rtol=5e-4, atol=5e-4)

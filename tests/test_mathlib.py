@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from direct12pbrrenderer_tpu.utils import mathlib as ml
+from direct12pbrrenderer.utils import mathlib as ml
 
 
 def test_projection_matrix1_depth_range():
@@ -38,7 +38,7 @@ def test_compose_trs_translation_column():
 
 def test_camera_yaw_pi_faces_negative_z():
     """App.cpp:99-101: camera at (0,3,10) rotated (0, pi, 0) looks down -z."""
-    from direct12pbrrenderer_tpu.scene.camera import Camera
+    from direct12pbrrenderer.scene.camera import Camera
 
     cam = Camera(0.333 * np.pi, 1440, 960, 0.1, 1000.0)
     cam.move([0, 3, 10])

@@ -7,13 +7,13 @@ ThreadPoolTest) plus codec cross-checks against the numpy implementations.
 import numpy as np
 import pytest
 
-from direct12pbrrenderer_tpu.native import load
+from direct12pbrrenderer.native import load
 
 pytestmark = pytest.mark.skipif(load() is None, reason="native library not built")
 
 
 def test_bc1_native_matches_numpy_decode():
-    from direct12pbrrenderer_tpu.resource import bc, native_codec
+    from direct12pbrrenderer.resource import bc, native_codec
 
     rng = np.random.default_rng(0)
     # random valid BC1 data (any bit pattern decodes)
@@ -22,7 +22,7 @@ def test_bc1_native_matches_numpy_decode():
     a = native_codec.bc1_decode_mip(blob, w, h)
     # numpy path (bypass native dispatch by calling internals)
     bw = bh = 8
-    import direct12pbrrenderer_tpu.resource.bc as bc_mod
+    import direct12pbrrenderer.resource.bc as bc_mod
 
     raw = np.frombuffer(blob, dtype=np.uint8).reshape(bh, bw, 8)
     # use the numpy implementation directly via a temp monkeypatch
@@ -36,7 +36,7 @@ def test_bc1_native_matches_numpy_decode():
 
 
 def test_bc6h_native_roundtrip_matches_numpy():
-    from direct12pbrrenderer_tpu.resource import bc, native_codec
+    from direct12pbrrenderer.resource import bc, native_codec
 
     y, x = np.mgrid[0:8, 0:8].astype(np.float32) / 8.0
     img = np.stack([1 + 4 * x, 0.5 + y, 2 * x * y + 0.1, np.ones_like(x)], -1).astype(
@@ -58,7 +58,7 @@ def test_bc6h_native_roundtrip_matches_numpy():
 
 
 def test_tlsf_alloc_free_merge():
-    from direct12pbrrenderer_tpu.utils.tlsf import TlsfAllocator
+    from direct12pbrrenderer.utils.tlsf import TlsfAllocator
 
     t = TlsfAllocator(1 << 20, min_block=256)
     a = t.alloc(1000)
@@ -76,7 +76,7 @@ def test_tlsf_alloc_free_merge():
 
 
 def test_tlsf_alignment():
-    from direct12pbrrenderer_tpu.utils.tlsf import TlsfAllocator
+    from direct12pbrrenderer.utils.tlsf import TlsfAllocator
 
     t = TlsfAllocator(1 << 20, min_block=256)
     t.alloc(300)  # misalign the arena head
@@ -86,7 +86,7 @@ def test_tlsf_alignment():
 
 
 def test_tlsf_oom():
-    from direct12pbrrenderer_tpu.utils.tlsf import TlsfAllocator
+    from direct12pbrrenderer.utils.tlsf import TlsfAllocator
 
     t = TlsfAllocator(4096, min_block=256)
     assert t.alloc(8192) is None
@@ -98,8 +98,8 @@ def test_tlsf_oom():
 
 
 def test_octree_cull_matches_bruteforce():
-    from direct12pbrrenderer_tpu.utils.octree import LooseOctree
-    from direct12pbrrenderer_tpu.utils import mathlib as ml
+    from direct12pbrrenderer.utils.octree import LooseOctree
+    from direct12pbrrenderer.utils import mathlib as ml
 
     rng = np.random.default_rng(1)
     tree = LooseOctree([-500] * 3, [500] * 3)
@@ -117,8 +117,8 @@ def test_octree_cull_matches_bruteforce():
 
 
 def test_octree_update_and_remove():
-    from direct12pbrrenderer_tpu.utils.octree import LooseOctree
-    from direct12pbrrenderer_tpu.utils import mathlib as ml
+    from direct12pbrrenderer.utils.octree import LooseOctree
+    from direct12pbrrenderer.utils import mathlib as ml
 
     tree = LooseOctree([-500] * 3, [500] * 3)
     h = tree.add([-1, -1, 10], [1, 1, 12])  # in front of origin camera (+z)

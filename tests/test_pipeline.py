@@ -3,16 +3,16 @@
 import numpy as np
 import pytest
 
-from direct12pbrrenderer_tpu.config import RenderConfig
-from direct12pbrrenderer_tpu.resource import reflection_def  # noqa: F401
-from direct12pbrrenderer_tpu.resource.default_meshes import sphere_mesh
-from direct12pbrrenderer_tpu.resource.resources import (
+from direct12pbrrenderer.config import RenderConfig
+from direct12pbrrenderer.resource import reflection_def  # noqa: F401
+from direct12pbrrenderer.resource.default_meshes import sphere_mesh
+from direct12pbrrenderer.resource.resources import (
     MaterialResource,
     MeshResource,
     ModelResource,
 )
-from direct12pbrrenderer_tpu.scene.camera import Camera
-from direct12pbrrenderer_tpu.scene.scene import Scene, SceneLight, SceneModel
+from direct12pbrrenderer.scene.camera import Camera
+from direct12pbrrenderer.scene.scene import Scene, SceneLight, SceneModel
 
 
 def build_scene(emissive=False):
@@ -54,7 +54,7 @@ CFG = RenderConfig(
 
 @pytest.fixture(scope="module")
 def pipeline():
-    from direct12pbrrenderer_tpu.pipeline.deferred import DeferredRenderPipeline
+    from direct12pbrrenderer.pipeline.deferred import DeferredRenderPipeline
 
     return DeferredRenderPipeline(
         build_scene(), CFG, tile_h=60, tile_w=160, bin_cap=256,
@@ -108,7 +108,7 @@ def test_render_sequence_matches_per_frame(camera):
     must reproduce N per-frame render() calls exactly: same frames, same
     exposure-EMA carry chain. Fresh pipelines (the shared fixture's EMA
     state is test-order dependent)."""
-    from direct12pbrrenderer_tpu.pipeline.deferred import DeferredRenderPipeline
+    from direct12pbrrenderer.pipeline.deferred import DeferredRenderPipeline
 
     mk = lambda: DeferredRenderPipeline(
         build_scene(), CFG, tile_h=60, tile_w=160, bin_cap=256,
@@ -170,129 +170,27 @@ def test_dynamic_scene_object_motion(pipeline, camera):
 
 
 def test_kernel_paths_match_xla_paths(camera):
-    """The Pallas cache kernels (texture + env page caches, interpret mode)
-    must reproduce the XLA sampler frame: covered taps are bit-exact, and at
-    this scene scale the page budgets cover (essentially) everything.
+    """The Triton kernel route (raster tile kernel + tile light kernel, in
+    Pallas interpret mode) must reproduce the plain XLA frame.
 
     Fresh pipelines on both sides: earlier tests mutate the shared fixture's
     scene in place."""
-    from direct12pbrrenderer_tpu.pipeline.deferred import DeferredRenderPipeline
+    from direct12pbrrenderer.pipeline.deferred import DeferredRenderPipeline
 
     mk = lambda **kw: DeferredRenderPipeline(
-        build_scene(), CFG, tile_h=60, tile_w=160, bin_cap=256,
+        build_scene(), CFG, tile_h=16, tile_w=64, bin_cap=256,
         prefilter_size=16, brdf_lut_size=32, **kw,
     )
-    kpipe = mk(use_tex_kernel=True, pallas_interpret=True)
-    assert kpipe.use_tex_kernel and kpipe.env_ids is not None
-    ref = np.asarray(mk().render(camera)).astype(np.float32)
+    kpipe = mk(pallas_interpret=True, light_tile=(16, 64))
+    assert kpipe.use_pallas and kpipe.route == "triton"
+    assert "pallas-triton-interpret" in kpipe.kernels
+    xpipe = mk()
+    assert not xpipe.use_pallas and xpipe.kernels == (
+        "route=xla raster=xla lights=xla-fori")
+    ref = np.asarray(xpipe.render(camera)).astype(np.float32)
     got = np.asarray(kpipe.render(camera)).astype(np.float32)
     rmse = float(np.sqrt(np.mean((ref - got) ** 2))) / 255.0
-    assert rmse < 1.5e-3, rmse
-
-
-def test_fused_gbuffer_matches_planar_pipeline(camera):
-    """The round-4 fused G-buffer path (raster tile blocks -> plan ->
-    resolve+shade kernel) must reproduce the planar kernel path at the
-    full-pipeline level (interpret mode)."""
-    from direct12pbrrenderer_tpu.pipeline.deferred import DeferredRenderPipeline
-
-    mk = lambda: DeferredRenderPipeline(
-        build_scene(), CFG, tile_h=24, tile_w=128, bin_cap=256,
-        prefilter_size=16, brdf_lut_size=32,
-        use_pallas=True, use_tex_kernel=True, pallas_interpret=True,
-    )
-    fused = mk()
-    assert fused.use_fused_gbuffer
-    planar = mk()
-    planar.use_fused_gbuffer = False
-    # derived invariant: the fused deferred kernel consumes the fused
-    # G-buffer's tile blocks, so it must fall back with it
-    planar.use_fused_deferred = False
-    planar.graph = planar._build_graph()
-    import jax
-
-    planar._frame_jit = jax.jit(planar._frame)
-    a = np.asarray(fused.render(camera)).astype(np.float32)
-    b = np.asarray(planar.render(camera)).astype(np.float32)
-    rmse = float(np.sqrt(np.mean((a - b) ** 2))) / 255.0
-    assert rmse < 1e-4, rmse
-    assert fused.last_stats.tex_approx_taps == planar.last_stats.tex_approx_taps
-
-
-def test_fused_deferred_matches_unfused_pipeline(camera):
-    """The round-4 fused deferred-shading path (env resolve + SH + split-sum
-    + in-kernel clustered lights + sky in ONE Pallas kernel on the G-buffer
-    tile blocks, ops/shade_pallas.py) must reproduce the unfused kernel
-    pipeline at the full-pipeline level (interpret mode). Tolerance is the
-    FMA-re-association bound, not bit-exactness: the kernel evaluates the
-    SH dots / light chains as scalar FMA chains where XLA uses
-    HIGHEST-precision dots."""
-    from direct12pbrrenderer_tpu.pipeline.deferred import DeferredRenderPipeline
-
-    mk = lambda: DeferredRenderPipeline(
-        build_scene(), CFG, tile_h=24, tile_w=128, bin_cap=256,
-        prefilter_size=16, brdf_lut_size=32,
-        use_pallas=True, use_tex_kernel=True, pallas_interpret=True,
-    )
-    fused = mk()
-    assert fused.use_fused_deferred
-    unfused = mk()
-    unfused.use_fused_deferred = False
-    unfused.graph = unfused._build_graph()
-    import jax
-
-    unfused._frame_jit = jax.jit(unfused._frame)
-    a = np.asarray(fused.render(camera)).astype(np.float32)
-    b = np.asarray(unfused.render(camera)).astype(np.float32)
-    rmse = float(np.sqrt(np.mean((a - b) ** 2))) / 255.0
     assert rmse < 1e-3, rmse
-    assert fused.last_stats.env_approx_taps == unfused.last_stats.env_approx_taps
-
-
-def test_tex_approx_stat_surfaced(camera):
-    """The cache kernel's fallback counter reaches FrameStats (honesty
-    contract: silent degradation is not allowed)."""
-    from direct12pbrrenderer_tpu.pipeline.deferred import DeferredRenderPipeline
-
-    kpipe = DeferredRenderPipeline(
-        build_scene(), CFG, tile_h=60, tile_w=160, bin_cap=256,
-        prefilter_size=16, brdf_lut_size=32,
-        use_tex_kernel=True, pallas_interpret=True,
-    )
-    kpipe.render(camera)
-    assert kpipe.last_stats.tex_approx_taps >= 0  # present and integer
-    assert kpipe.last_stats.env_approx_taps >= 0
-
-
-def test_env_budget_census_and_starvation(camera):
-    """Env-cache demand-shaped staging at pipeline level: the census-
-    recommended budget reproduces the unbudgeted frame bit-exactly, and a
-    fallback-only starvation budget degrades with a COUNTED approx stat
-    (honesty contract — never silent)."""
-    from direct12pbrrenderer_tpu.ops import envcache
-    from direct12pbrrenderer_tpu.pipeline.deferred import DeferredRenderPipeline
-    from direct12pbrrenderer_tpu.tools.tap_census import env_census_for_pose
-
-    mk = lambda **kw: DeferredRenderPipeline(
-        build_scene(), CFG, tile_h=60, tile_w=160, bin_cap=256,
-        prefilter_size=16, brdf_lut_size=32,
-        use_tex_kernel=True, pallas_interpret=True, **kw,
-    )
-    full = mk()
-    img_full = np.asarray(full.render(camera, collect_stats=True))
-    base_approx = full.last_stats.env_approx_taps
-
-    census = env_census_for_pose(full, camera)
-    budget = envcache.recommend_budget([census])
-    sized = mk(env_budget=budget)
-    np.testing.assert_array_equal(
-        np.asarray(sized.render(camera)), img_full
-    )
-
-    g = 5 if full.env_ids[4] else 4
-    tiny = mk(env_budget=envcache.SEG_CHUNK * g)
-    tiny.render(camera, collect_stats=True)
-    assert tiny.last_stats.env_approx_taps > base_approx
 
 
 def test_device_cull_matches_host(camera):
@@ -301,8 +199,8 @@ def test_device_cull_matches_host(camera):
     selection, same fp32 op order, so the masks match exactly."""
     import jax.numpy as jnp
 
-    from direct12pbrrenderer_tpu.ops import common
-    from direct12pbrrenderer_tpu.pipeline.deferred import DeferredRenderPipeline
+    from direct12pbrrenderer.ops import common
+    from direct12pbrrenderer.pipeline.deferred import DeferredRenderPipeline
 
     pipe = DeferredRenderPipeline(
         build_scene(), CFG, tile_h=60, tile_w=160, bin_cap=256,
@@ -332,8 +230,8 @@ def test_arbitrary_resolution_pad_and_crop():
     App.h:77-78): the raster canvas pads to the tile grid and the RT is
     cropped before post. A non-divisible-width pipeline must agree with the
     divisible-path render of the same logical frame."""
-    from direct12pbrrenderer_tpu.pipeline.deferred import DeferredRenderPipeline
-    from direct12pbrrenderer_tpu.config import RenderConfig
+    from direct12pbrrenderer.pipeline.deferred import DeferredRenderPipeline
+    from direct12pbrrenderer.config import RenderConfig
 
     scene = build_scene()
     cfg = RenderConfig(width=320, height=240, max_triangles=2048,

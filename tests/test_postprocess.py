@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from direct12pbrrenderer_tpu.config import NUM_HISTOGRAM_BINS
-from direct12pbrrenderer_tpu.ops import bloom, postprocess
+from direct12pbrrenderer.config import NUM_HISTOGRAM_BINS
+from direct12pbrrenderer.ops import bloom, postprocess
 
 
 def test_histogram_binning_matches_shader_rule():
@@ -101,7 +101,7 @@ def test_average_luminance_direct_matches_histogram_path():
 
 
 def test_bloom_fused_matches_literal():
-    """The MXU matmul formulation (blur∘resize folded into per-level
+    """The matmul formulation (blur∘resize folded into per-level
     matrices) must equal the literal per-pass chain it re-associates."""
     rng = np.random.default_rng(11)
     img = (rng.random((96, 128, 3)) * 12.0).astype(np.float32)

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from direct12pbrrenderer_tpu.ops import raster
+from direct12pbrrenderer.ops import raster
 
 
 def make_clip(verts_ndc):

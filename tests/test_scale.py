@@ -3,15 +3,15 @@
 The north-star scene class is ~260k triangles (BASELINE.json); these tests
 prove the static pools auto-grow past the 65k default, and that the
 hierarchical binner keeps every 1080p tile overflow-free at that density.
-The full-frame render at this scale is benched on TPU (bench.py)."""
+The full-frame render at this scale is benched on the GPU (bench.py)."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-from direct12pbrrenderer_tpu.config import RenderConfig
-from direct12pbrrenderer_tpu.pipeline import scene_pack, stages
-from direct12pbrrenderer_tpu.tools.stress_scene import build_stress_scene
+from direct12pbrrenderer.config import RenderConfig
+from direct12pbrrenderer.pipeline import scene_pack, stages
+from direct12pbrrenderer.tools.stress_scene import build_stress_scene
 
 
 def test_stress_scene_pools_autogrow_and_bin_1080p():
@@ -22,11 +22,11 @@ def test_stress_scene_pools_autogrow_and_bin_1080p():
     assert t_pool >= 512 * 256 * 2          # auto-grown past the 65k default
     assert packed.tri_valid.sum() == 512 * 256 * 2
 
-    from direct12pbrrenderer_tpu.pipeline.deferred import DeferredRenderPipeline
-    from direct12pbrrenderer_tpu.scene.camera import Camera
+    from direct12pbrrenderer.pipeline.deferred import DeferredRenderPipeline
+    from direct12pbrrenderer.scene.camera import Camera
 
     # geometry + hierarchical binning at 1080p (full-frame render at this
-    # scale runs on TPU via bench.py; CPU CI checks the binning contract)
+    # scale runs on the GPU via bench.py; CPU CI checks the binning contract)
     cam = Camera(cfg.fov, cfg.width, cfg.height, cfg.near, cfg.far)
     cam.move([0, 6, 18])
     cam.rotate(0, np.pi, 0.35)

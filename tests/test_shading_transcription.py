@@ -20,14 +20,14 @@ import math
 import numpy as np
 import jax.numpy as jnp
 
-from direct12pbrrenderer_tpu.config import (
+from direct12pbrrenderer.config import (
     CLUSTER_X,
     CLUSTER_Y,
     CLUSTER_Z,
     MAX_LIGHTS_PER_CLUSTER,
     PREFILTER_ENVMAP_MIP_LEVELS,
 )
-from direct12pbrrenderer_tpu.ops import common, shading
+from direct12pbrrenderer.ops import common, shading
 
 EPSILON = 1e-6
 PI = math.pi
@@ -194,7 +194,7 @@ def test_deferred_shading_full_pixel_transcription():
     fov, ratio, near, far = 0.333 * math.pi, w / h, 0.1, 500.0
 
     # camera: plausible inv_view (yaw+pitch rotation, offset position)
-    from direct12pbrrenderer_tpu.scene.camera import Camera
+    from direct12pbrrenderer.scene.camera import Camera
 
     cam = Camera(fov, w, h, near, far)
     cam.move([1.0, 3.0, 8.0])

@@ -1,19 +1,19 @@
-"""Smoke coverage for the committed measurement tools (VERDICT r4 #9):
-tools that aren't exercised by the pipeline tests rot silently as the
-pipeline API moves — profile_pipeline is run here end-to-end on a tiny
-scene so a signature drift fails fast."""
+"""Smoke coverage for the committed measurement tools: tools that aren't
+exercised by the pipeline tests rot silently as the pipeline API moves —
+profile_pipeline is run here end-to-end on a tiny scene so a signature drift
+fails fast."""
 
 import numpy as np
 
-from direct12pbrrenderer_tpu.config import RenderConfig
-from direct12pbrrenderer_tpu.scene.camera import Camera
+from direct12pbrrenderer.config import RenderConfig
+from direct12pbrrenderer.scene.camera import Camera
 
 from test_pipeline import build_scene
 
 
 def test_profile_pipeline_smoke():
-    from direct12pbrrenderer_tpu.pipeline.deferred import DeferredRenderPipeline
-    from direct12pbrrenderer_tpu.tools.profile import profile_pipeline
+    from direct12pbrrenderer.pipeline.deferred import DeferredRenderPipeline
+    from direct12pbrrenderer.tools.profile import profile_pipeline
 
     cfg = RenderConfig(width=128, height=96, max_triangles=2048,
                        max_vertices=2048, max_instances=4, max_lights=16)
@@ -33,9 +33,8 @@ def test_profile_pipeline_smoke():
 
 
 def test_tools_import_surface():
-    # the checklist + census mains stay importable (their library pieces are
-    # covered by test_auto_caps / the pipeline census tests)
-    from direct12pbrrenderer_tpu.tools import tap_census, tpu_checklist
+    # the profiler's and bench scenes' entry points stay importable
+    from direct12pbrrenderer.tools import profile, stress_scene
 
-    assert callable(tpu_checklist.main)
-    assert callable(tap_census.main)
+    assert callable(profile.main)
+    assert callable(stress_scene.bench_pipeline)

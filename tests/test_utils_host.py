@@ -6,8 +6,8 @@ import time
 
 import pytest
 
-from direct12pbrrenderer_tpu.utils.misc import Event, TimeScope, align_up
-from direct12pbrrenderer_tpu.utils.threading import TaskQueue, ThreadPool
+from direct12pbrrenderer.utils.misc import Event, TimeScope, align_up
+from direct12pbrrenderer.utils.threading import TaskQueue, ThreadPool
 
 
 def test_thread_pool_schedule_futures():

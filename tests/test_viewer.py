@@ -8,15 +8,15 @@ import urllib.request
 
 import numpy as np
 
-from direct12pbrrenderer_tpu.config import RenderConfig
-from direct12pbrrenderer_tpu.scene.camera import Camera
+from direct12pbrrenderer.config import RenderConfig
+from direct12pbrrenderer.scene.camera import Camera
 from test_pipeline import build_scene
 
 PORT = 8765
 
 
 def _make_app():
-    from direct12pbrrenderer_tpu.pipeline.deferred import DeferredRenderPipeline
+    from direct12pbrrenderer.pipeline.deferred import DeferredRenderPipeline
 
     cfg = RenderConfig(width=160, height=120, max_triangles=2048,
                        max_vertices=2048, max_instances=4, max_lights=16)
@@ -31,7 +31,7 @@ def _make_app():
 
 
 def test_viewer_serves_page_and_steps_camera():
-    from direct12pbrrenderer_tpu.app import viewer
+    from direct12pbrrenderer.app import viewer
 
     app = _make_app()
     t = threading.Thread(target=viewer.serve, args=(app, PORT), daemon=True)
@@ -43,7 +43,7 @@ def test_viewer_serves_page_and_steps_camera():
             break
         except OSError:
             time.sleep(0.2)
-    assert b"direct12pbrrenderer_tpu" in page
+    assert b"direct12pbrrenderer" in page
 
     pos0 = np.asarray(app.camera.position).copy()
 
@@ -71,7 +71,7 @@ def test_viewer_input_semantics_stub_pipeline():
     """Fast tier: HTTP endpoints + App::Update input constants without a real
     pipeline compile (the rendering path is pinned by the slow e2e test
     above; this stub keeps the viewer module covered in the <2-min core)."""
-    from direct12pbrrenderer_tpu.app import viewer
+    from direct12pbrrenderer.app import viewer
 
     class StubStats:
         visible_instances = 3
@@ -98,7 +98,7 @@ def test_viewer_input_semantics_stub_pipeline():
             break
         except OSError:
             time.sleep(0.2)
-    assert page and b"direct12pbrrenderer_tpu" in page
+    assert page and b"direct12pbrrenderer" in page
 
     def step(payload):
         req = urllib.request.Request(
